@@ -1,10 +1,10 @@
-"""spcbpt_tpu — TPU-native SPCBPT renderer (JAX/XLA/Pallas).
+"""spcbpt_tpu — SPCBPT renderer in JAX, running on NVIDIA GPUs.
 
 A from-scratch rebuild of the capabilities of the SPCBPT-OptiX7 reference
 renderer (subspace-based probabilistic connections for bidirectional path
-tracing) designed for TPU hardware: wavefront SoA pipelines under jit,
-software-BVH traversal kernels, matmul-shaped subspace classification and
-on-device Gamma training, and multi-chip scaling via jax.sharding.
+tracing): wavefront SoA pipelines under jit, a one-thread-per-ray CUDA BVH
+traversal kernel, matmul-shaped subspace classification and on-device Gamma
+training, and multi-device scaling via jax.sharding.
 """
 
 __version__ = "0.1.0"

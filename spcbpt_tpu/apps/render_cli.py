@@ -60,8 +60,7 @@ def build_argparser():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--platform", default="default",
                    choices=["default", "cpu"],
-                   help="'cpu' forces the CPU backend via jax.config pre-init "
-                        "(the env-var route still initializes the TPU plugin)")
+                   help="'cpu' forces the CPU backend")
     return p
 
 
@@ -78,11 +77,6 @@ def resolve_scene(name: str) -> str:
         mode = {"interior": "interior", "interior_lit": "lit",
                 "interior_cove": "cove"}[name]
         return interior_path(mode=mode)
-    if name == "house":
-        # the reference's bundled scene (readme.md run instructions)
-        p = "/root/reference/src/data/house/house_uvrefine2.scene"
-        if os.path.exists(p):
-            return p
     raise SystemExit(f"scene not found: {name}")
 
 
@@ -96,10 +90,11 @@ def main(argv=None):
     from ..runtime import setup as _setup
     _setup()
     from ..config import PT_MAX_DEPTH, PretraceConfig
-    from ..render import light_trace, lvc, pt, spcbpt
+    from ..render import light_trace, lvc, pt_pool, spcbpt_pool
     from ..render.film import Film
     from ..scene.scene import load_trace_scene
     from ..train import classify, pipeline
+    from ..utils.profiling import compile_clock
     from .. import checkpoint as ckpt_mod
 
     scene_path = resolve_scene(args.scene)
@@ -110,9 +105,13 @@ def main(argv=None):
         width, height = map(int, args.dim.lower().split("x"))
         cam.aspect = width / height
     eye, U, V, W = cam.uvw()
+    device = jax.devices()[0]
+    stats = {"alg": args.alg, "width": width, "height": height,
+             "device_kind": device.device_kind, "phases": {
+                 "scene_load": time.time() - t0}}
     print(f"[scene] {scene_path}: {ts.num_tris} tris, "
           f"{ts.num_lights} lights, mode={ts.mode} "
-          f"({time.time()-t0:.1f}s)", flush=True)
+          f"({time.time()-t0:.1f}s) on {device.device_kind}", flush=True)
     if args.print_camera:
         print(f"[camera] eye {desc.eye} lookat {desc.lookat} up {desc.up} "
               f"fov {desc.fov}")
@@ -120,75 +119,96 @@ def main(argv=None):
     spp = 1 if args.one_frame else args.spp
     max_depth = args.max_depth or (PT_MAX_DEPTH if args.alg == "pt" else 16)
     film = Film(width, height)
-    stats = {"alg": args.alg, "width": width, "height": height, "spp": spp,
-             "phases": {}}
+    stats["spp"] = spp
 
-    ss = classify.untrained_state()
-    if args.alg == "spcbpt":
-        if args.resume:
-            ss = ckpt_mod.load_subspace_state(args.resume)
-            print(f"[train] resumed from {args.resume}")
+    with compile_clock() as compiled:
+        ss = classify.untrained_state()
+        if args.alg == "spcbpt":
+            if args.resume:
+                ss = ckpt_mod.load_subspace_state(args.resume)
+                print(f"[train] resumed from {args.resume}")
+            else:
+                print("[train] preprocessing (pretrace + trees + Q + "
+                      "Gamma)...", flush=True)
+                cfg = PretraceConfig(num_core=8192,
+                                     target_samples=args.train_samples,
+                                     target_q_samples=args.q_samples)
+                ss, pstats = pipeline.preprocess(
+                    ts, (eye, U, V, W), width, height, cfg,
+                    lt_paths=min(args.light_paths, 50_000),
+                    lt_depth=min(args.light_depth, 8),
+                    nn_train=args.classifier == "nn", verbose=True)
+                stats["phases"]["preprocess"] = pstats.seconds
+                print(f"[train] done: {pstats.seconds}")
+                if args.checkpoint:
+                    ckpt_mod.save_subspace_state(args.checkpoint, ss)
+                    print(f"[train] checkpoint -> {args.checkpoint}")
+        stats["preprocess_compile_seconds"] = compiled["seconds"]
+
+        # one progressive frame (1 spp) per step; the light phase (light
+        # sub-paths + LVC build) and the eye phase are fenced apart so each
+        # is timed on its own
+        if args.alg == "pt":
+            def light_phase(s):
+                return None
+
+            def eye_phase(s, sampler):
+                return pt_pool.render_pool_jit(
+                    ts, eye, U, V, W, width, height, 1, s + args.seed,
+                    max_depth=max_depth)
         else:
-            print("[train] preprocessing (pretrace + trees + Q + Gamma)...",
-                  flush=True)
-            cfg = PretraceConfig(num_core=8192,
-                                 target_samples=args.train_samples,
-                                 target_q_samples=args.q_samples)
-            ss, pstats = pipeline.preprocess(
-                ts, (eye, U, V, W), width, height, cfg,
-                lt_paths=min(args.light_paths, 50_000),
-                lt_depth=min(args.light_depth, 8),
-                nn_train=args.classifier == "nn", verbose=True)
-            stats["phases"]["preprocess"] = pstats.seconds
-            print(f"[train] done: {pstats.seconds}")
-            if args.checkpoint:
-                ckpt_mod.save_subspace_state(args.checkpoint, ss)
-                print(f"[train] checkpoint -> {args.checkpoint}")
+            uniform = args.alg == "bdpt"
+            lt_jit = jax.jit(lambda ts_, ss_, f: light_trace.trace_light_paths(
+                ts_, ss_, args.light_paths, f, max_depth=args.light_depth))
+            build = lvc.make_builder(None if uniform else ss)
+            if args.alg == "spcbpt" and ss.trained:
+                print(f"[render] second stage '{ss.second_stage}'",
+                      flush=True)
 
-    t_render = time.time()
-    if args.alg == "pt":
-        from ..render import pt_pool
-        fsum, count = pt_pool.render_pool_jit(
-            ts, eye, U, V, W, width, height, spp, args.seed,
-            max_depth=max_depth)
-        jax.block_until_ready(fsum)
-        film.accum = fsum / jnp.maximum(count[:, None], 1)
-        film.subframe = spp
-    else:
-        from ..render import spcbpt_pool
-        uniform = args.alg == "bdpt"
-        lt_jit = jax.jit(lambda ts_, ss_, f: light_trace.trace_light_paths(
-            ts_, ss_, args.light_paths, f, max_depth=args.light_depth))
-        lt_fn = lambda f: lt_jit(ts, ss, f)
-        build = lvc.make_builder(None if uniform else ss)
+            def light_phase(s):
+                return build(lt_jit(ts, ss, s + args.seed + 7919),
+                             s + args.seed)
+
+            def eye_phase(s, sampler):
+                return spcbpt_pool.render_pool_jit(
+                    ts, ss, sampler, eye, U, V, W, width, height, 1,
+                    s + args.seed, max_depth=max_depth,
+                    connection_n=args.connection_n, uniform=uniform)
+
         fsum = jnp.zeros((width * height, 3))
         count = jnp.zeros((width * height,), jnp.int32)
-        if args.alg == "spcbpt" and ss.trained:
-            print(f"[render] second stage '{ss.second_stage}'", flush=True)
+        light_s, eye_s = [], []
+        t_render = time.time()
         for s in range(spp):
             t_lt = time.time()
-            sampler = build(lt_fn(s + args.seed + 7919), s + args.seed)
+            sampler = jax.block_until_ready(light_phase(s))
             t_eye = time.time()
-            fs, ct = spcbpt_pool.render_pool_jit(
-                ts, ss, sampler, eye, U, V, W, width, height, 1,
-                s + args.seed, max_depth=max_depth,
-                connection_n=args.connection_n, uniform=uniform)
+            fs, ct = jax.block_until_ready(eye_phase(s, sampler))
+            light_s.append(t_eye - t_lt)
+            eye_s.append(time.time() - t_eye)
             fsum = fsum + fs
             count = count + ct
             if s == 0 or (s + 1) % 16 == 0:
-                jax.block_until_ready(fsum)
-                print(f"[frame {s+1}/{spp}] light {1e3*(t_eye-t_lt):.0f} ms "
-                      f"+ eye {1e3*(time.time()-t_eye):.0f} ms", flush=True)
+                print(f"[frame {s+1}/{spp}] light {1e3*light_s[-1]:.0f} ms "
+                      f"+ eye {1e3*eye_s[-1]:.0f} ms", flush=True)
         film.accum = fsum / jnp.maximum(count[:, None], 1)
         film.subframe = spp
-
-    jax.block_until_ready(film.accum)
-    dt = time.time() - t_render
-    rays = width * height * spp
+        jax.block_until_ready(film.accum)
+        dt = time.time() - t_render
+    # the first frame compiles; the steady rate is over the frames after it
+    steady = slice(1, None) if spp > 1 else slice(None)
+    stats["compile_seconds"] = compiled["seconds"]
     stats["render_seconds"] = dt
-    stats["samples_per_second"] = rays / dt
-    print(f"[render] {spp} spp in {dt:.1f}s "
-          f"({rays/dt/1e6:.2f} Mpaths/s)", flush=True)
+    stats["first_frame_seconds"] = light_s[0] + eye_s[0]
+    stats["light_ms_per_spp"] = 1e3 * float(np.mean(light_s[steady]))
+    stats["eye_ms_per_spp"] = 1e3 * float(np.mean(eye_s[steady]))
+    stats["ms_per_spp"] = stats["light_ms_per_spp"] + stats["eye_ms_per_spp"]
+    mem = device.memory_stats() or {}
+    stats["peak_bytes_in_use"] = mem.get("peak_bytes_in_use", 0)
+    print(f"[render] {spp} spp in {dt:.1f}s: {stats['ms_per_spp']:.1f} "
+          f"ms/spp after the first frame, {compiled['seconds']:.1f}s "
+          f"compiling, peak device memory "
+          f"{stats['peak_bytes_in_use'] / 2**30:.2f} GiB", flush=True)
 
     film.save_png(args.out)
     print(f"[out] {args.out}")

@@ -13,7 +13,7 @@ sutil.cpp:715-752 stats overlay, operation.md:5):
   q / ESC    quit
 
 The frame is drawn with 24-bit ANSI half-blocks (two pixels per character
-cell), so it runs over ssh with no window system — the TPU-native stand-in
+cell), so it runs over ssh with no window system — the headless stand-in
 for the reference's GLFW/ImGui window. Progressive accumulation resets on
 any camera or algorithm change (reference updateState:371-380).
 

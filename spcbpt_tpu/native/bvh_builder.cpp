@@ -1,7 +1,7 @@
 // Binned-SAH BVH builder with skip-link flattening (native runtime piece).
 //
 // Host-side replacement for the reference's OptiX GAS/IAS accel builds
-// (reference: sutil/Scene.cpp buildMeshAccels:943) serving the TPU traversal
+// (reference: sutil/Scene.cpp buildMeshAccels:943) serving the traversal
 // kernels; same output contract as ops/bvh.py::build_bvh_numpy (that numpy
 // implementation is the correctness oracle for this one).
 //

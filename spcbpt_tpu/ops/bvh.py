@@ -1,10 +1,11 @@
 """Binned-SAH BVH build (host) + stackless skip-link flattening.
 
 Replaces the reference's OptiX GAS/IAS builds (reference: sutil/Scene.cpp
-buildMeshAccels:943, buildInstanceAccel:1260) with a software BVH laid out for
-TPU traversal: nodes in depth-first order, so an interior node's left child is
-`node+1` and every node stores a single "skip" escape index. Traversal needs no
-stack — one int per lane (see ops/traverse.py).
+buildMeshAccels:943, buildInstanceAccel:1260) with a software BVH: nodes in
+depth-first order, so an interior node's left child is `node+1`, its right
+child is `skip[node+1]`, and every node stores a single "skip" escape index.
+The XLA walk needs no stack — one int per lane (ops/traverse.py); the GPU
+kernel keeps a short stack to visit the nearer child first (ops/bvh_gpu.py).
 
 Leaves reference a contiguous range of reordered triangles, so leaf tests are
 dense vector loads. A native C++ builder (native/bvh_builder.cpp) accelerates

@@ -1,9 +1,9 @@
 """Ray-triangle intersection (Moller-Trumbore) and brute-force tracing.
 
-This is the traversal correctness oracle and the fast path for small scenes
-(a Cornell box has ~32 triangles: testing all of them as one fused broadcasted
-VPU op beats any tree walk on TPU). Larger scenes use ops/traverse.py (XLA
-skip-link BVH) or ops/pallas_trace.py.
+This is the traversal correctness oracle and, on the CPU, the fast path for
+small scenes (a Cornell box has ~32 triangles: testing all of them as one
+fused broadcast beats XLA's tree walk). Larger scenes use ops/traverse.py
+(XLA skip-link BVH) and, on a GPU, ops/bvh_gpu.py.
 
 Replaces OptiX RT core dispatch (reference: optixTrace calls in
 src/OptiXPathTracer/cuProg.h:387-533). Two ray "types" as in the reference
@@ -80,8 +80,8 @@ def brute_force_closest(origins, dirs, tri_p0, tri_e1, tri_e2,
     tri_ids = jnp.arange(chunk, dtype=jnp.int32)[None, :]
 
     def body(carry, inputs):
-        # gather-free reduction: argmin/take_along_axis lower poorly on TPU,
-        # so reduce with min + tie-break masks instead (pure VPU ops)
+        # gather-free reduction: min + tie-break masks (elementwise ops that
+        # fuse) instead of argmin/take_along_axis
         best_t, best_tri, best_u, best_v = carry
         p0, e1, e2, base = inputs
         t, u, v, hit = tri_test(o, d, p0[None], e1[None], e2[None], cull_backface)

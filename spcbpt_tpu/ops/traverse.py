@@ -7,8 +7,8 @@ their pointer reaches the node count. This maps to gathers + elementwise ops —
 no per-lane stacks, no divergence beyond the usual masked lanes.
 
 Replaces OptiX hardware traversal (reference optixTrace; SBT dispatch becomes
-the caller's masked selects). See ops/pallas_trace.py for the VMEM-resident
-fast path.
+the caller's masked selects). The loop takes as many steps as its slowest
+ray needs; ops/bvh_gpu.py walks the same tree with one GPU thread per ray.
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@ reference is single-GPU, SURVEY.md §2 note).
 
 Layout (BASELINE.md config 5, "multi-chip tiled SPCBPT"):
 - 2-D device mesh (tile, spp): pixel rows shard over `tile`, independent
-  sample streams shard over `spp` and reduce with pmean over ICI.
+  sample streams shard over `spp` and reduce with pmean.
 - Scene, BVH, Gamma/Q and classifiers are replicated (they are small; the
   film and ray state dominate).
 - The LVC is regenerated per chip with decorrelated seeds instead of
@@ -64,7 +64,7 @@ def _block_camera_rays(eye, U, V, W, width, height, rows_per_tile, tile_idx,
 def sharded_pt_render(ts, cam_uvw, width: int, height: int, subframe,
                       mesh: Mesh, max_depth: int = 12):
     """One progressive PT sample for the full image, pixels sharded over
-    `tile`, sample streams averaged over `spp` with pmean (ICI psum).
+    `tile`, sample streams averaged over `spp` with pmean.
     Returns (width*height, 3) sharded along axis 0 over `tile`."""
     eye, U, V, W = [jnp.asarray(x, jnp.float32) for x in cam_uvw]
     n_tile = mesh.shape["tile"]
@@ -97,9 +97,8 @@ def sharded_spcbpt_render(ts, ss, cam_uvw, width: int, height: int, subframe,
     sub-wavefronts (lax.map): peak live-lane memory drops ~sub_blocks-fold
     while the estimator is unchanged — camera rays are seeded by global
     pixel index, and the chip's one LVC sampler serves every sub-block just
-    as it serves the whole block. Needed on real chips at 2048^2, where a
-    4.2M-lane connection wavefront (3x gathers of s32[12.6M]) OOMs a
-    single-chip 1x1 mesh."""
+    as it serves the whole block. It bounds device memory when one device
+    holds a large frame's whole connection wavefront."""
     eye, U, V, W = [jnp.asarray(x, jnp.float32) for x in cam_uvw]
     n_tile = mesh.shape["tile"]
     assert height % n_tile == 0

@@ -53,8 +53,8 @@ def accumulate(accum, sample, subframe, clamp_c: float | None = None):
     parity — the reference accumulates unclamped, cuProg.h:901-938): each
     subframe's per-channel radiance is capped at clamp_c * sqrt(subframe+1),
     so the bound grows without limit and the bias vanishes as N -> inf while
-    the unbounded-second-moment connection tail (measured relMSE ~ N^-0.65
-    on the cove interior, see STATUS round 3) is cut to a finite-variance
+    the unbounded-second-moment connection tail (relMSE falling slower than
+    1/N on the cove interior) is cut to a finite-variance
     estimator at every finite N."""
     if clamp_c is not None:
         bound = clamp_c * jnp.sqrt(jnp.asarray(subframe, jnp.float32) + 1.0)

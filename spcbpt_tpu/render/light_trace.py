@@ -9,7 +9,7 @@ hit a vertex with the cumulative flux/pdf RATIO (unit-invariant; see
 LightVertices), subspace label (light tree), and the light-side
 recursive-MIS accumulator updated per rmis.h:22-98.
 
-TPU shape: one lane per light path (the reference's core x M_per_core loop is
+Wavefront shape: one lane per light path (the reference's core x M_per_core loop is
 flattened), lax.scan over the depth cap; the per-depth vertex batches are the
 LVC — a fixed (max_depth+1, n_paths) SoA with valid flags, no compaction.
 """

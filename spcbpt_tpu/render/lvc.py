@@ -14,8 +14,8 @@ path_count * pmf1 * pmf2 (raygen.cu:410-414).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
 
+from ..utils import struct
 from ..config import NUM_SUBSPACE
 from ..ops.cmf import segment_pmf, segment_searchsorted
 from ..train import classify

@@ -11,7 +11,7 @@ per bounce: trace (back-face culled) -> if miss, env radiance only at depth 0
 deferred visibility ray, then RR (rate = clamp(max base_color, MIN_RR_RATE, 1))
 and Disney BSDF bounce. 30-bounce cap.
 
-TPU shape: all pixels advance together through a lax.scan over the depth cap
+Wavefront shape: all pixels advance together through a lax.scan over the depth cap
 with an alive mask; the two traversal calls per bounce (closest + shadow) are
 batched over the full wavefront.
 """
@@ -115,9 +115,8 @@ def make_pt_step(ts: TraceScene, max_depth: int = PT_MAX_DEPTH):
             live = ~c["done"]
             # done lanes keep their last (o, d): without masking they would
             # re-trace the same ray every remaining scan step (RR kills most
-            # lanes well before the depth cap — measured ~70% of closest-ray
-            # work wasted at depth cap 12). Dead-lane tmax + the liveness
-            # sort skips them in the walk kernels.
+            # lanes well before the depth cap). A dead-lane tmax makes the
+            # traversal skip them.
             hit = trace_closest(ts, c["o"], c["d"], SCENE_EPSILON,
                                 jnp.where(live, 1e16, -1.0), CULL_BACKFACE)
             miss = ~hit.valid & live

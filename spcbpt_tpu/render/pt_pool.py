@@ -1,4 +1,4 @@
-"""Path-regeneration wavefront PT: the TPU-throughput variant of render/pt.py.
+"""Path-regeneration wavefront PT: the throughput variant of render/pt.py.
 
 The naive wavefront scans a fixed depth cap with alive masks, so lanes killed
 by Russian roulette (expected path length ~4 on Cornell) waste ~85% of every
@@ -75,10 +75,8 @@ def render_pool(ts: TraceScene, cam_uvw, width: int, height: int,
             count=jnp.zeros((n_pixels,), jnp.int32),
         )
 
-    # no full-state presort: trace_closest's internal sort gives the same
-    # traversal coherence on just (o, d) + an inverse scatter of the hit;
-    # permuting the whole lane state per bounce is pure HBM traffic (r5
-    # ablation on the spcbpt pool measured it at ~95 ms/spp at 256^2)
+    # no presort of the lane state: permuting it every bounce would be pure
+    # memory traffic
 
     def cond(c):
         return jnp.any(c["alive"]) | (c["next_sample"] < total)

@@ -469,8 +469,8 @@ def _connections(ts, ss, sampler, mid: EyeVertices, eye_ratio, state,
         second_stage = ss.second_stage if ss.trained else "uniform"
     eye_for_conn = _ConnEye(mid, eye_ratio)
     # per-frame presampled table for this mode: replaces the per-draw CMF
-    # bisection (18 ms/wavefront on v5e) with two gathers — see
-    # lvc.presample_tables for the unbiasedness argument
+    # bisection with two gathers — see lvc.presample_tables for the
+    # unbiasedness argument
     use_table = (sampler.table_idx is not None
                  and sampler.table_mode == second_stage)
     draws = []
@@ -542,10 +542,8 @@ def _connections(ts, ss, sampler, mid: EyeVertices, eye_ratio, state,
         # dead eye lanes (missed / emitter-hit / done): the caller zeroes
         # their result anyway — skip their occlusion rays too
         can_contribute = can_contribute & jnp.tile(live, (connection_n,))
-    # the connection wavefront's directions are unrelated to the pool's
-    # presorted bounce rays — always sort it by its OWN coherence key
-    # (argsort is ~free on TPU; unsorted incoherent any-hit measured ~2.5x
-    # slower at 196k rays)
+    # the connection wavefront's directions are unrelated to the bounce
+    # rays: a traversal that sorts (mode "tile") sorts it by its own key
     vis_all = visibility(ts, pos_all, target_all, SCENE_EPSILON, sort=None,
                          mask=can_contribute)
     ok_all = can_contribute & vis_all

@@ -76,11 +76,9 @@ def render_pool(ts: TraceScene, ss: classify.SubspaceState,
                  count=jnp.zeros((n_pixels,), jnp.int32))
         return c
 
-    # no full-state presort: trace_closest's internal sort gives the same
-    # traversal coherence on just (o, d) + an inverse scatter of the hit,
-    # while permuting the whole 20+-array lane state (EyeVertices incl.)
-    # costs ~95 ms/spp of pure HBM traffic at 256^2 (r5 ablation); pool
-    # lanes are ~always live, so dead-lane packing buys nothing here.
+    # no presort of the 20+-array lane state (EyeVertices included):
+    # permuting it every bounce would be pure memory traffic, and pool lanes
+    # are almost always live, so packing dead lanes buys nothing.
 
     def cond(c):
         return jnp.any(c["alive"]) | (c["next_sample"] < total)

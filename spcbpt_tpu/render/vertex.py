@@ -1,14 +1,15 @@
 """BDPT vertex record (SoA) shared by the light tracer, LVC and SPCBPT.
 
 Mirrors the fields of the reference BDPTVertex (reference: BDPTVertex.h:9-70)
-that the connection/RMIS math consumes. Stored as a flax struct of arrays so a
+that the connection/RMIS math consumes. Stored as a pytree dataclass of arrays so a
 whole LVC is one pytree; per-lane slices are plain dict-like gathers.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from ..utils import struct
 
 
 @struct.dataclass
@@ -54,15 +55,14 @@ class LightVertices:
 
 # Packed-matrix layout: one (V, 32) f32 row per vertex so a connection draw
 # fetches the whole record with ONE row-gather instead of ~20 scalar gathers
-# (measured on v5e: 65k-row gather from (524k, 32) = 0.6 ms vs ~12 ms for the
-# SoA field-by-field take). Ints are stored as f32 (all ids < 2^24, exact);
-# bools as 0/1.
+# of the SoA fields. Ints are stored as f32 (all ids < 2^24, exact); bools
+# as 0/1.
 _VEC3_FIELDS = ("position", "normal", "ratio", "color", "last_position")
 _F32_FIELDS = ("single_pdf", "last_normal_proj", "last_lum", "rmis")
 _INT_FIELDS = ("mat_id", "subspace_id", "eye_label", "last_zone_id", "depth")
 _BOOL_FIELDS = ("is_origin", "is_env", "is_ll_direction", "is_brdf",
                 "last_brdf", "valid")
-PACK_WIDTH = 32  # 15 + 4 + 5 + 6 = 30 (+1 optional weight_b), one 32-lane tile
+PACK_WIDTH = 32  # 15 + 4 + 5 + 6 = 30 (+1 optional weight_b), padded to 32
 WEIGHT_B_COL = 30  # precomputed rmis.tracing_weight_light (see pack_matrix)
 
 

@@ -13,12 +13,13 @@ from typing import Optional
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
 
 from ..config import NUM_SUBSPACE_LIGHTSOURCE
 from ..ops import bvh as bvh_mod
+from ..ops import bvh_gpu
 from ..ops import clusters as clusters_mod
-from ..ops import intersect, ray_walk, tile_trace, traverse
+from ..ops import intersect, tile_trace, traverse
+from ..utils import struct
 from . import obj as obj_mod
 from .camera import Camera
 from .envmap import EnvMap, build_envmap, dummy_envmap
@@ -30,22 +31,14 @@ from .parser import SceneDesc, load_scene
 # longest edge exceeds TEX_MAX are area-downsampled (memory bound: the stack
 # is dense HBM).
 TEX_MAX = 2048
-# Traversal-mode auto-selection thresholds. Measured on v5e: the fused
-# brute-force path scales ~linearly (112 Mrays/s @ 32 tris, 2.6 @ 2048,
-# 0.7 @ 8192) while the XLA while_loop BVH walk is gather-bound and
-# effectively unusable (~0 Mrays/s) — the BVH walk only wins on CPU.
-# At scene scale, TPU uses the tiled two-level cluster traversal
-# (ops/tile_trace.py): 57-83 Mrays/s at 1024x1024 camera rays over the
-# 32.5k-tri interior scene depending on tile size (K=32 sweep, v5e).
+# Traversal-mode auto-selection. On the CPU, testing every triangle of a
+# small scene as one fused broadcast beats XLA's BVH while_loop; on the GPU
+# the one-thread-per-ray kernel (ops/bvh_gpu.py) serves every size.
 BRUTE_FORCE_MAX_TRIS_CPU = 1024
-BRUTE_FORCE_MAX_TRIS_TPU = 512
 CLUSTER_TRI_K = 32
 TILE_LANES = 256
-# ops/ray_walk keeps the whole (C, 16, 128) triangle table VMEM-resident
-# (64 B/tri); beyond this the tile path takes over
-WALK_MAX_TRIS = 120_000
-# renderer wavefronts are incoherent after the first bounce; sorting restores
-# the two-level interval culling of ops/tile_trace (see ray_sort_key)
+# sorting restores the two-level interval culling of mode "tile" on
+# incoherent wavefronts (see tile_trace.ray_sort_key)
 SORT_RAYS = os.environ.get("SPCBPT_SORT_RAYS", "1") != "0"
 
 
@@ -106,8 +99,6 @@ class TraceScene:
     bvh_leaf_count: jnp.ndarray
     # two-level cluster traversal (mode "tile"; None otherwise)
     clusters: Optional[clusters_mod.ClusterSet] = None
-    # K=128 cluster set for the row-walk kernel (mode "walk"; ops/ray_walk)
-    clusters_walk: Optional[clusters_mod.ClusterSet] = None
     # per-texture native (h, w) inside the padded stack (None = every
     # texture fills its slot, legacy/test scenes)
     tex_h: Optional[jnp.ndarray] = None   # (NT,) int32
@@ -130,22 +121,6 @@ class TraceScene:
 # tracing entry points (the two "ray types" of optixPathTracer.h:202-209)
 # ---------------------------------------------------------------------------
 
-def wavefront_key(ts: TraceScene, origins, dirs):
-    """Coherence sort key for a wavefront, or None when the active traversal
-    mode has no use for sorted rays (brute/bvh). Pool renderers presort their
-    whole lane state by this once per bounce and pass sort=False to the trace
-    calls (saves the per-call argsort + output scatter)."""
-    cs = ts.clusters_walk if ts.mode == "walk" else (
-        ts.clusters if ts.mode == "tile" else None)
-    if cs is None:
-        return None
-    if isinstance(cs, tuple):   # partitioned large scene
-        return tile_trace.ray_sort_key(
-            jnp.concatenate([p.cmin for p in cs]),
-            jnp.concatenate([p.cmax for p in cs]), origins, dirs)
-    return tile_trace.ray_sort_key(cs.cmin, cs.cmax, origins, dirs)
-
-
 def trace_closest(ts: TraceScene, origins, dirs, tmin, tmax,
                   cull_backface: bool = True,
                   sort: bool | None = None) -> intersect.Hit:
@@ -156,20 +131,12 @@ def trace_closest(ts: TraceScene, origins, dirs, tmin, tmax,
         return intersect.brute_force_closest(
             origins, dirs, ts.tri_p0, ts.tri_e1, ts.tri_e2, tmin, tmax,
             cull_backface, chunk=min(512, max(8, ts.num_tris)))
-    if ts.mode == "walk":
-        if isinstance(ts.clusters_walk, tuple):
-            return ray_walk.walk_closest_parts(ts.clusters_walk, origins,
-                                               dirs, tmin, tmax,
-                                               cull_backface,
-                                               sort_rays=do_sort)
-        return ray_walk.walk_closest(ts.clusters_walk, origins, dirs,
-                                     tmin, tmax, cull_backface,
-                                     sort_rays=do_sort)
     if ts.mode == "tile":
         return tile_trace.tile_closest(ts.clusters, origins, dirs, tmin, tmax,
                                        cull_backface, tile=TILE_LANES,
                                        sort_rays=do_sort)
-    return traverse.bvh_closest(
+    walk = bvh_gpu if ts.mode == "cuda" else traverse
+    return walk.bvh_closest(
         origins, dirs, tmin, tmax,
         ts.bvh_min, ts.bvh_max, ts.bvh_skip, ts.bvh_leaf_start,
         ts.bvh_leaf_count, ts.tri_p0, ts.tri_e1, ts.tri_e2, cull_backface)
@@ -184,16 +151,11 @@ def trace_any(ts: TraceScene, origins, dirs, tmin, tmax,
         return intersect.brute_force_any(
             origins, dirs, ts.tri_p0, ts.tri_e1, ts.tri_e2, tmin, tmax,
             chunk=min(512, max(8, ts.num_tris)))
-    if ts.mode == "walk":
-        if isinstance(ts.clusters_walk, tuple):
-            return ray_walk.walk_any_parts(ts.clusters_walk, origins, dirs,
-                                           tmin, tmax, sort_rays=do_sort)
-        return ray_walk.walk_any(ts.clusters_walk, origins, dirs, tmin, tmax,
-                                 sort_rays=do_sort)
     if ts.mode == "tile":
         return tile_trace.tile_any(ts.clusters, origins, dirs, tmin, tmax,
                                    tile=TILE_LANES, sort_rays=do_sort)
-    return traverse.bvh_any(
+    walk = bvh_gpu if ts.mode == "cuda" else traverse
+    return walk.bvh_any(
         origins, dirs, tmin, tmax,
         ts.bvh_min, ts.bvh_max, ts.bvh_skip, ts.bvh_leaf_start,
         ts.bvh_leaf_count, ts.tri_p0, ts.tri_e1, ts.tri_e2)
@@ -205,9 +167,9 @@ def visibility(ts: TraceScene, pos_a, pos_b, eps: float = 1e-3,
     cuProg.h:463-487).
 
     mask (optional, bool (...,)): lanes where mask is False are not traced —
-    their tmax is set below tmin so the walk kernels' row pruning skips them
-    entirely (ops/ray_walk._pad dead-lane convention); the returned value for
-    those lanes is unspecified. Callers use this to skip occlusion work for
+    their tmax is set below tmin, which every traversal treats as a dead
+    lane that does no work; the returned value for those lanes is
+    unspecified. Callers use this to skip occlusion work for
     connections whose contribution is already known to be zero."""
     d = pos_b - pos_a
     dist = jnp.sqrt(jnp.maximum(jnp.sum(d * d, axis=-1), 1e-30))
@@ -329,7 +291,12 @@ def build_scene(desc: SceneDesc, data_dir: Optional[str] = None,
     textures = np.ones((max(len(tex_paths), 1), 1, 1, 3), np.float32)
     tex_hw = np.ones((max(len(tex_paths), 1), 2), np.int32)
     if tex_paths:
-        import cv2
+        try:
+            import cv2
+        except ImportError as e:
+            raise ImportError(
+                "scenes with albedo textures need OpenCV (the 'textures' "
+                "extra: pip install opencv-python)") from e
         texs = []
         for p in tex_paths:
             full = os.path.join(data_dir, p)
@@ -508,27 +475,15 @@ def build_scene(desc: SceneDesc, data_dir: Optional[str] = None,
 
     if mode is None:
         import jax
-        if jax.default_backend() == "cpu":
-            mode = "brute" if len(p0) <= BRUTE_FORCE_MAX_TRIS_CPU else "bvh"
-        elif len(p0) <= BRUTE_FORCE_MAX_TRIS_TPU:
-            mode = "brute"
+        if jax.default_backend() == "gpu":
+            mode = "cuda"
         else:
-            mode = "walk"   # any size: partitioned sets above WALK_MAX_TRIS
+            mode = "brute" if len(p0) <= BRUTE_FORCE_MAX_TRIS_CPU else "bvh"
 
     cset = None
-    cset_walk = None
     if mode == "tile":
         cset = clusters_mod.build_clusters(flat, p0[order], e1[order],
                                            e2[order], max_tris=CLUSTER_TRI_K)
-    elif mode == "walk":
-        if len(p0) <= WALK_MAX_TRIS:
-            cset_walk = clusters_mod.build_clusters(
-                flat, p0[order], e1[order], e2[order], max_tris=128,
-                with_coeff=False)
-        else:
-            cset_walk = clusters_mod.build_cluster_parts(
-                flat, p0[order], e1[order], e2[order], max_tris=128,
-                part_max_tris=WALK_MAX_TRIS, with_coeff=False)
 
     def dev(x, dt=jnp.float32):
         return jnp.asarray(x, dt)
@@ -549,7 +504,7 @@ def build_scene(desc: SceneDesc, data_dir: Optional[str] = None,
         bvh_skip=dev(flat.skip, jnp.int32),
         bvh_leaf_start=dev(flat.leaf_start, jnp.int32),
         bvh_leaf_count=dev(flat.leaf_count, jnp.int32),
-        clusters=cset, clusters_walk=cset_walk,
+        clusters=cset,
         num_lights=L + (1 if has_env else 0),
         num_quad_lights=L,
         has_env=has_env,

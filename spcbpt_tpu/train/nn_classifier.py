@@ -6,10 +6,12 @@ encoding :1384, batched per-class GEMMs via cublasSgemmBatched :2138, relu,
 softmax-with-temperature :2558, Kaiming init :1486; network_parameter
 :2870-3079 refines labels over a 32-nearby-subspace close set). It corresponds
 to the paper's learned-classification extension; main only calls the matrix
-trainer. We provide the same capability behind a flag, shaped for the MXU:
+trainer. We provide the same capability behind a flag, shaped as batched
+matrix products:
 
 - every eye subspace owns a small MLP (stacked weights, one batched einsum —
-  the TPU analogue of the reference's batched cuBLAS GEMMs);
+  the analogue of the reference's batched cuBLAS GEMMs, run at float32
+  precision rather than a GPU's default TF32);
 - input is a sin/cos positional encoding of the connection point;
 - output is a distribution over that eye subspace's CLOSE_SET nearest light
   subspaces (softmax with temperature), which refines the trained Gamma row
@@ -28,14 +30,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import struct
 
+from ..utils import struct
 from ..config import NUM_SUBSPACE
 
 CLOSE_SET = 32          # nearby light subspaces per eye subspace (ref :2870)
 ENC_FREQS = 4           # positional encoding octaves (ref position_encoding)
 HIDDEN = 32
 TEMPERATURE = 2.0       # softmax temperature (sigmoid_peak_op :2558)
+# float32 products: a GPU would otherwise run them in TF32 (10 mantissa bits)
+_PRECISION = jax.lax.Precision.HIGHEST
 
 
 class NNParams(NamedTuple):
@@ -90,9 +94,10 @@ def close_probs(nt: NNTables, eye_label, position, normal):
     feats = encode(position, normal, nt.scene_lo, nt.scene_hi)
     row = jnp.clip(eye_label, 0, nt.w1.shape[0] - 1)
     h = jax.nn.relu(jnp.einsum("nf,nfh->nh", feats, nt.w1[row],
+                               precision=_PRECISION,
                                preferred_element_type=jnp.float32)
                     + nt.b1[row])
-    logits = jnp.einsum("nh,nhk->nk", h, nt.w2[row],
+    logits = jnp.einsum("nh,nhk->nk", h, nt.w2[row], precision=_PRECISION,
                         preferred_element_type=jnp.float32) + nt.b2[row]
     return jax.nn.softmax(logits / TEMPERATURE, axis=-1), nt.close_set[row]
 
@@ -145,9 +150,9 @@ def forward(state: NNState, eye_label, feats):
     b1 = params.b1[eye_label]
     w2 = params.w2[eye_label]
     b2 = params.b2[eye_label]
-    h = jax.nn.relu(jnp.einsum("nf,nfh->nh", feats, w1,
+    h = jax.nn.relu(jnp.einsum("nf,nfh->nh", feats, w1, precision=_PRECISION,
                                preferred_element_type=jnp.float32) + b1)
-    logits = jnp.einsum("nh,nhk->nk", h, w2,
+    logits = jnp.einsum("nh,nhk->nk", h, w2, precision=_PRECISION,
                         preferred_element_type=jnp.float32) + b2
     probs = jax.nn.softmax(logits / TEMPERATURE, axis=-1)
     return probs, state.close_set[eye_label]

@@ -1,6 +1,9 @@
 """Image/film helpers: tonemap, srgb, PNG IO, error metrics."""
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
 import jax.numpy as jnp
 
@@ -27,8 +30,24 @@ def to_display(c, limit: float = TONEMAP_LIMIT):
 
 
 def write_png(path: str, rgb8: np.ndarray) -> None:
-    import imageio.v2 as imageio
-    imageio.imwrite(path, np.asarray(rgb8))
+    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG: one zlib-deflated
+    IDAT chunk of unfiltered scanlines."""
+    img = np.ascontiguousarray(rgb8, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected an (H, W, 3) image, got {img.shape}")
+    h, w, _ = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, 3 * w)],
+                          axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + chunk(b"IEND", b""))
 
 
 def write_hdr_npz(path: str, img: np.ndarray) -> None:

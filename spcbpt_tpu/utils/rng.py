@@ -2,9 +2,9 @@
 
 The reference seeds each thread with tea<4>(linear_index, subframe) and draws
 sequential uniforms with a 1664525/1013904223 LCG (reference: src/cuda/random.h).
-We reproduce the same scheme as pure elementwise uint32 jnp ops — it is cheap on
-the VPU, stateless per (lane, frame), and keeps sample sequences structurally
-comparable to the reference.
+We reproduce the same scheme as pure elementwise uint32 jnp ops — it fuses
+into the surrounding kernels, is stateless per (lane, frame), and keeps
+sample sequences structurally comparable to the reference.
 
 Usage is functional: every draw returns (value, new_state).
 """

@@ -1,6 +1,6 @@
 """Vector math over SoA arrays of shape (..., 3).
 
-TPU-native replacement for the reference's float3 operator headers
+Batched replacement for the reference's float3 operator headers
 (reference: src/sutil/vec_math.h) — everything is batched jnp, last axis = xyz.
 """
 from __future__ import annotations

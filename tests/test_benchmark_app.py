@@ -3,7 +3,7 @@ bit-identical image) and the --platform cpu escape hatch.
 
 Reference contract: the OptiX app renders its ground-truth comparisons in one
 uninterruptible progressive session (optixPathTracer.cpp render loop); here
-long references checkpoint per chunk so a stalled remote-TPU run resumes.
+long references checkpoint per chunk so an interrupted run resumes.
 """
 import json
 import os

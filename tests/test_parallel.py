@@ -1,6 +1,6 @@
 """Multi-chip sharding correctness on the 8-device virtual CPU mesh.
 
-The reference is single-GPU (SURVEY.md §2 parallelism note); the TPU
+The reference is single-GPU (SURVEY.md §2 parallelism note); the
 rebuild's mesh layout (tile, spp) is new capability and must be proven
 equivalent to the single-chip renderer: shard_map semantics are per-shard,
 so the sharded render must equal the same per-tile bodies run sequentially

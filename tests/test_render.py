@@ -82,7 +82,7 @@ def test_bdpt_matches_pt_mean(cornell):
 
 def test_spcbpt_trained_state_runs(cornell):
     """Trained-Gamma sampling path executes and stays finite (full pipeline
-    quality is covered by the TPU-side benchmark)."""
+    quality is covered by the benchmark app)."""
     ts, (eye, U, V, W) = cornell
     rng = np.random.default_rng(0)
     from spcbpt_tpu.config import NUM_SUBSPACE

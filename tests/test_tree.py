@@ -40,10 +40,10 @@ def test_octree_pure_regions_exact():
 
 def test_classify_matches_float64_oracle():
     """classify()'s matmul runs at Precision.HIGHEST: the |ci|^2 - 2 p.ci
-    score cancels catastrophically at bf16 (TPU f32-matmul default input
-    rounding), which measured 48.8% label flips on cove light vertices and
-    broke TPU-trained checkpoints rendered elsewhere. Labels must match an
-    exact float64 nearest-centroid oracle."""
+    score cancels catastrophically at reduced matmul precision (bf16 or a
+    GPU's TF32), which flips labels and breaks checkpoints trained under one
+    rounding and rendered under another. Labels must match an exact float64
+    nearest-centroid oracle."""
     import numpy as np
     import jax.numpy as jnp
     from spcbpt_tpu.train import classify as cl

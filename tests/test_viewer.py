@@ -40,7 +40,7 @@ def test_ansi_frame_shapes():
     assert "▀" in rows[0]
 
 
-def test_scripted_session_renders_and_saves(tmp_path, capsys):
+def test_scripted_session_renders_and_saves(tmp_path, capsys, read_png):
     out = str(tmp_path / "view.png")
     rc = viewer.main(["--scene", "cornell", "--dim", "32x32",
                       "--max-depth", "4", "--keys", " cp", "--frames", "5",
@@ -49,7 +49,6 @@ def test_scripted_session_renders_and_saves(tmp_path, capsys):
     assert os.path.exists(out)
     cap = capsys.readouterr()
     assert "[camera]" in cap.out  # the 'c' key printed the pose
-    import imageio.v2 as imageio
-    im = imageio.imread(out)
+    im = read_png(out)
     assert im.shape == (32, 32, 3)
     assert im.mean() > 1  # scene is lit
